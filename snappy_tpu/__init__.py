@@ -1,10 +1,11 @@
-"""snappy_tpu: a TPU-native Snappy codec framework.
+"""snappy_tpu: a Snappy codec framework on JAX/XLA, with a CUDA block decoder.
 
 A from-scratch reimplementation of the Snappy compression format
-(capability parity with the reference Snappy.jl; see SURVEY.md) designed
-TPU-first: block-parallel Pallas/XLA kernels for encode/decode, a framed
-container for embarrassingly-parallel and distributed codec paths, plus a
-scalar CPU oracle and a native C++ runtime for host-side work.
+(capability parity with the reference Snappy.jl; see SURVEY.md) built for
+an accelerator: block-parallel XLA kernels for encode/decode and a CUDA
+block decoder on NVIDIA GPUs, a framed container for embarrassingly-parallel
+and distributed codec paths, plus a scalar CPU oracle and a native C++
+runtime for host-side work.
 
 Public API (mirrors reference src/Snappy.jl:3-5,20-93):
   - compress(data) -> bytes              raw snappy stream

@@ -4,11 +4,12 @@
 
   - "cpu"    scalar NumPy oracle (always available, ground truth)
   - "native" C++ shared library (fast host path)
-  - "xla"    JAX/XLA block-parallel kernels (TPU path; also runs on CPU)
+  - "xla"    JAX device path (kernels from ops/select.py: the CUDA block
+             decoder and encode_xla on a GPU, the XLA codecs on CPU)
   - None     best available: native for host calls, falling back to cpu
 
-The TPU path is exposed both here (host convenience, includes host<->device
-transfer) and as pure jittable functions in :mod:`snappy_tpu.ops` for callers
+The device path is exposed both here (host convenience, includes host<->device
+transfer) and as jittable functions in :mod:`snappy_tpu.ops` for callers
 composing larger device programs.
 """
 

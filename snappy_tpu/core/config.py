@@ -24,24 +24,11 @@ class CodecConfig:
     max_hash_table_size: int = MAX_HASH_TABLE_SIZE
     # Fast-path overread margin (reference src/internal.jl:32).
     input_margin: int = INPUT_MARGIN_BYTES
-    # Cap on vectorized match extension in the TPU encoder. Matches longer
+    # Cap on vectorized match extension in the device encoder. Matches longer
     # than this are split into back-to-back copies at the same offset, which
     # re-chunk to the identical tag sequence the reference's 64-byte chunking
     # produces (reference src/internal.jl:316-326), so density is unaffected.
     max_match_scan: int = 512
-    # Greedy take threshold for the TPU encoder: a match is emitted only if
-    # it saves at least this many bytes over staying literal. 1 reproduces
-    # the reference's take-anything greed; higher values thin the tag
-    # stream — the TPU decoder is tag-bound, so fewer, longer tags decode
-    # faster. 2 is the highest value whose emitted size stays <= the native
-    # hash-table greedy on EVERY corpus file (the per-file density gate in
-    # tests/test_tpu_compiled.py; at 3, short-match-rich files — kppkn.gtb,
-    # the random word corpora — and fireworks.jpeg lose to it), so 2 is the
-    # default. The active value reaches the device encoder via
-    # FrameConfig.min_profit (framed path) or an explicit ``min_profit=``
-    # argument to ops.select.block_encoder; DEFAULT_MIN_PROFIT below is the
-    # shared default both read.
-    min_profit: int = 2
 
     def __post_init__(self) -> None:
         if not 1 <= self.block_size <= 1 << 16:
@@ -49,7 +36,6 @@ class CodecConfig:
 
 
 DEFAULT_CONFIG = CodecConfig()
-DEFAULT_MIN_PROFIT = DEFAULT_CONFIG.min_profit
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,9 +49,6 @@ class FrameConfig:
 
     block_size: int = BLOCK_SIZE
     checksum: bool = True
-    # Greedy take threshold for the device encoder on this frame's blocks
-    # (see CodecConfig.min_profit for the rationale behind the default).
-    min_profit: int = DEFAULT_MIN_PROFIT
 
 
 DEFAULT_FRAME_CONFIG = FrameConfig()

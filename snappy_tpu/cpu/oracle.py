@@ -1,6 +1,6 @@
 """CPU oracle codec: a scalar NumPy implementation of the Snappy format.
 
-This is the ground-truth implementation the TPU kernels are differentially
+This is the ground-truth implementation the device kernels are differentially
 tested against (SURVEY.md §7 layer 1). It reproduces the *behaviour* of
 libsnappy's greedy LZ77 parse — hash-probe scan with heuristic match
 skipping, literal/copy emission, 64-byte copy chunking — so its compressed
@@ -10,7 +10,7 @@ corruption checks of the reference (reference src/internal.jl:127-250 encode,
 translated line-by-line).
 
 Performance is not a goal here (see snappy_tpu.native for the C++ oracle and
-snappy_tpu.ops for the TPU path).
+snappy_tpu.ops for the device path).
 """
 
 from __future__ import annotations

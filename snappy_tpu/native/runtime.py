@@ -4,7 +4,7 @@ The process-internal language boundary of this framework (host side), the
 structural analogue of the reference's benchmark ccall shim
 (reference test/libsnappy.jl:5-30) — but here it is a first-class backend:
 the fast host codec used for framing I/O and as the speed/size baseline the
-TPU kernels are measured against.
+device kernels are measured against.
 """
 
 from __future__ import annotations
@@ -111,7 +111,7 @@ def compress(data) -> bytes:
 def compress_rows(buf: np.ndarray, blens: np.ndarray, idx) -> list[bytes]:
     """Headerless tag streams for the selected rows of a (B, row_w) uint8
     block matrix — ONE native call for the whole set (the routed encode
-    path's batch interface; per-block ctypes calls cost ~30 us each)."""
+    path's batch interface: one ctypes call instead of one per block)."""
     lib = _load()
     idx64 = np.ascontiguousarray(np.asarray(idx, np.int64))
     k = len(idx64)

@@ -262,8 +262,7 @@ int snappy_tpu_compress(const uint8_t* in, size_t n,
 
 // Batched HEADERLESS block compress for the routed encode path
 // (ops/route.py): one call compresses every selected row of a (B, row_w)
-// block matrix, amortizing the per-call binding cost that dominated the
-// per-block loop (~30 us/block of a ~100 us/block budget on jpeg).
+// block matrix, amortizing the per-call binding cost of a per-block loop.
 // idx[k] selects row k's block; lens[k] is its byte length; row k's tag
 // stream lands at out + k * out_stride with its size in out_lens[k].
 int snappy_tpu_compress_rows(const uint8_t* in, size_t row_w,
@@ -404,37 +403,27 @@ int64_t snappy_tpu_scan_blocks(const uint8_t* in, size_t n, uint64_t ulen,
       if (offset == 0 || op < offset || ulen - op < len) return -2;
       // A copy reaching behind its segment start is a real cross-segment
       // dependency. MERGE the segment into its predecessor(s) instead of
-      // giving up: the kernel's output buffer and 17-bit fields cover
-      // segments up to 128 KiB of output (the cap check below declines
-      // the rest), so back-references crossing one 64 KiB mark stay on
-      // the fast path. oplens[blk-1] is rewritten at the merged
-      // segment's eventual closure.
+      // giving up: the block decoders' output window covers segments up
+      // to 128 KiB of output (the cap check below declines the rest), so
+      // back-references crossing one 64 KiB mark stay on the fast path.
+      // oplens[blk-1] is rewritten at the merged segment's eventual
+      // closure.
       while (op - offset < seg_start) {
         if (blk < 2) return -1;
         --blk;
         seg_start -= oplens[blk - 1];
       }
-      // Valid but unrepresentable in the Pallas kernel's 17-bit offset
-      // field: decline so the caller falls back — the scan's contract
-      // must match the kernel's field widths (in-segment offsets fit
-      // 17 bits whenever the segment-output cap below holds, so this
-      // binds only on streams the cap also declines).
-      if (offset > 0x1ffff) return -1;
       op += len;
     } else {
       const size_t lit = len + trailer;
       if (ip > n || n - ip < lit || ulen - op < lit) return -2;
-      // Valid long literal past the kernel's literal-length field
-      // (17 bits minus tag headroom): decline, don't let the kernel
-      // flag it corrupt.
-      if (lit > 0x1fff8) return -1;
       ip += lit;
       op += lit;
     }
     // A tag may overshoot the 64 KiB segmentation mark by its own output;
-    // the kernel's fixed output buffer (and its field widths) cover
-    // exactly two marks' worth. Segments a single tag stretches past
-    // 128 KiB fall back to the windowed decoder.
+    // the block decoders' output window (ops/host.py: 1 << 17 bytes)
+    // covers exactly two marks' worth. Segments a single tag stretches
+    // past 128 KiB fall back to the windowed decoder.
     if (op - seg_start > (1u << 17)) return -1;
   }
   if (op != ulen) return -2;

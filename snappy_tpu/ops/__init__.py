@@ -1,1 +1,1 @@
-"""Device codec kernels (XLA array programs + Pallas TPU kernels)."""
+"""Device codec kernels (XLA array programs + the CUDA block decoder) and their selector."""

@@ -1,6 +1,6 @@
 """Two-pass parallel Snappy decoder as an XLA array program.
 
-This is the TPU-native replacement for the reference's sequential tag loop
+This is the data-parallel replacement for the reference's sequential tag loop
 (reference src/internal.jl:411-466), which is fundamentally serial: each
 tag's position depends on the previous tag's length, and each copy reads
 output produced by earlier tags. Both chains are broken here (SURVEY.md §7
@@ -22,14 +22,14 @@ step 3):
 
 All corruption checks of the reference are enforced branch-free and reduced
 to a per-block ``ok`` flag (offset==0, out-of-range offsets/lengths,
-literal overruns, output-length mismatch: reference src/internal.jl:493-518,
-src/Snappy.jl:50).
+literal overruns, truncated tags, output-length mismatch: reference
+src/internal.jl:493-518, src/Snappy.jl:50).
 
-TPU lowering notes (measured on v5e): the program is written natively
-batched (B, N) and SCATTER-FREE — XLA TPU executes scatters (and vmapped
-1-D gathers) at scalar rate, while batched 2-D ``take_along_axis``,
-``sort``, ``cumsum`` and ``searchsorted`` all run at tens of Gelem/s. The
-single-stream raw path is the B=1 case.
+The program is written natively batched (B, N) and scatter-free: batched
+``take_along_axis``, ``sort``, ``cumsum`` and ``searchsorted`` only. The
+single-stream raw path is the B=1 case. It is the plain reference the
+CUDA block decoder (decode_cuda) reproduces bit for bit, and the decoder
+on every platform that kernel does not cover.
 """
 
 from __future__ import annotations
@@ -44,7 +44,6 @@ from .primitives import (
     WORDMASK_U32,
     ceil_log2,
     exclusive_cumsum,
-    isolate,
     le32_at_every_position,
 )
 
@@ -54,15 +53,8 @@ COMP_PAD = 4
 
 
 def _take(x: jnp.ndarray, idx: jnp.ndarray) -> jnp.ndarray:
-    """Batched gather on the fast TPU path (plain 2-D take_along_axis).
-
-    Operands and result are fenced with optimization barriers: XLA:TPU's
-    fast gather emitter applies only to STANDALONE gathers — fused with
-    elementwise neighbors the whole fusion lowers to a scalar loop
-    (measured here: parse stage 48.7ms -> sub-ms once fenced).
-    """
-    x, idx = isolate(x, idx)
-    return isolate(jnp.take_along_axis(x, idx, axis=-1))
+    """Batched gather along the last axis."""
+    return jnp.take_along_axis(x, idx, axis=-1)
 
 
 def parse_all_positions(comp_padded: jnp.ndarray, limit: int):
@@ -106,7 +98,7 @@ def tag_orbit(starts: jnp.ndarray, nxt: jnp.ndarray, max_tags: int) -> jnp.ndarr
 
     Doubling list growth: L holds the first len(L) chain elements and J is
     the len(L)-step map, so L ++ J(L) doubles coverage per round — gathers
-    only, no scatter (TPU scatters run at scalar rate).
+    only, no scatter.
     """
     b, n = nxt.shape
     jump = jnp.concatenate([nxt.astype(jnp.int32), jnp.full((b, 1), n, jnp.int32)], axis=-1)
@@ -163,7 +155,12 @@ def decode_blocks_impl(comp: jnp.ndarray, clens, ulens, starts, out_size: int):
     ulens_c = ulens[:, None]
 
     # --- corruption checks (reference src/internal.jl:493-518, Snappy.jl:50).
-    bad_copy = (t_offset == 0) | (topos < t_offset) | (topos + t_out_len > ulens_c)
+    bad_copy = (
+        (t_offset == 0)
+        | (topos < t_offset)
+        | (topos + t_out_len > ulens_c)
+        | (tags + 1 + t_taglen > clens_c)  # copy tag truncated by the stream end
+    )
     bad_lit = (tags + 1 + t_taglen + t_lit_len > clens_c) | (topos + t_lit_len > ulens_c)
     bad = valid & jnp.where(t_is_copy, bad_copy, bad_lit)
     ok = jnp.logical_not(jnp.any(bad, axis=-1)) & (total == ulens)
@@ -186,7 +183,6 @@ def decode_blocks_impl(comp: jnp.ndarray, clens, ulens, starts, out_size: int):
     delta = out_iota - o_opos
 
     lit_idx = jnp.clip(o_litsrc + delta, 0, nc + COMP_PAD - 1)
-    # Gather bytes through an int32 copy: uint8 gathers run at scalar rate.
     comp_i32 = comp.astype(jnp.int32)
     lit_val = _take(comp_i32, lit_idx)
     src = jnp.where(o_iscopy, out_iota - o_off, out_iota)
@@ -202,10 +198,25 @@ def decode_blocks_impl(comp: jnp.ndarray, clens, ulens, starts, out_size: int):
     return out, ok, total
 
 
+# Most blocks decoded in one vectorized step. The program's temporaries grow
+# with the batch (about 1.8 MB per 64 KiB block on the CPU, 5 MB on the
+# GPU), so larger batches run as a loop of steps of this many blocks and
+# temporaries stay bounded whatever the stream size.
+MAX_BATCH_BLOCKS = 64
+
+
 def decode_blocks(comp_blocks: jnp.ndarray, clens: jnp.ndarray, ulens: jnp.ndarray, out_size: int):
     """Decode a batch of independent headerless block tag streams
-    (the framed fast path; this axis is what shards across chips)."""
-    return decode_blocks_impl(comp_blocks, clens, ulens, jnp.zeros_like(clens), out_size)
+    (the framed fast path; this axis is what shards across devices)."""
+    b = comp_blocks.shape[0]
+    if b <= MAX_BATCH_BLOCKS:
+        return decode_blocks_impl(comp_blocks, clens, ulens, jnp.zeros_like(clens), out_size)
+    steps = -(-b // MAX_BATCH_BLOCKS)
+    pad = steps * MAX_BATCH_BLOCKS - b
+    rows = [jnp.pad(x, [(0, pad)] + [(0, 0)] * (x.ndim - 1)) for x in (comp_blocks, clens, ulens)]
+    rows = [x.reshape(steps, MAX_BATCH_BLOCKS, *x.shape[1:]) for x in rows]
+    out, ok, total = jax.lax.map(lambda r: decode_blocks(*r, out_size), rows)
+    return out.reshape(-1, out_size)[:b], ok.reshape(-1)[:b], total.reshape(-1)[:b]
 
 
 def decode_padded(comp_padded: jnp.ndarray, clen, ulen, start, out_size: int):

@@ -1,6 +1,6 @@
 """Block-parallel Snappy encoder as an XLA array program.
 
-TPU-native replacement for the reference's sequential greedy scan
+The data-parallel replacement for the reference's sequential greedy scan
 (reference src/internal.jl:127-250). The scalar loop carries three
 dependence chains — the hash table (most-recent previous occurrence), the
 greedy parse cursor, and the output cursor. Each is replaced by a parallel
@@ -34,7 +34,7 @@ construct (SURVEY.md §7 step 4):
 
 Blocks are independent (hash window resets per 64 KiB, offsets never cross
 blocks — reference src/Snappy.jl:29-33) and vmapped; that axis is what
-shards across chips.
+shards across devices.
 """
 
 from __future__ import annotations
@@ -82,7 +82,6 @@ def _find_candidates(u32: jnp.ndarray, blen) -> tuple[jnp.ndarray, jnp.ndarray]:
     sv = u32[order]
 
     def prev_k(k: int) -> jnp.ndarray:
-        # int32 shift/concat: bool minor-dim relayouts run at scalar rate.
         same = jnp.concatenate([jnp.zeros(k, jnp.int32), (sv[k:] == sv[:-k]).astype(jnp.int32)])
         prev = jnp.where(same > 0, jnp.concatenate([jnp.zeros(k, jnp.int32), order[:-k]]), -1)
         cand = jnp.zeros(n, jnp.int32).at[order].set(prev)
@@ -198,7 +197,9 @@ def encode_block(
         # Literal run length: distance to the next copy tag (or block end).
         INF = jnp.int32(n + 1)
         copy_pos = jnp.where(is_copy_tag, pos, INF)
-        next_copy = -jax.lax.cummax((-copy_pos)[::-1])[::-1]  # reverse cummin
+        # (cummax of the negated, reversed array is miscompiled by XLA:GPU
+        # once vmapped over 32 or more blocks; the reverse cummin is not.)
+        next_copy = jax.lax.cummin(copy_pos, reverse=True)
         lit_len = jnp.minimum(next_copy, blen) - pos  # valid at lit starts
 
         cbytes, _, _, _, _ = _copy_nbytes(ml, offset)
@@ -224,7 +225,6 @@ def encode_block(
     t_off = jnp.where(is_tag, out_off, BLOCK_MAX_OUT)
     mo = BLOCK_MAX_OUT
     out_iota = jnp.arange(mo, dtype=jnp.int32)
-    # int32 throughout: bool scatters/gathers lower to scalar loops on TPU.
     mark = jnp.zeros(mo, jnp.int32).at[t_off].set(1, mode="drop") > 0
     seg_p = jnp.zeros(mo, jnp.int32).at[t_off].set(pos, mode="drop")
     seg_copy = jnp.zeros(mo, jnp.int32).at[t_off].set(is_copy_tag.astype(jnp.int32), mode="drop")
@@ -261,7 +261,6 @@ def encode_block(
         jnp.where(delta == 1, nm1 & 0xFF, nm1 >> 8),
     )
     body_idx = jnp.clip(p + delta - hl_s, 0, n + ENC_PAD - 1)
-    # int32 copy for the gather: uint8 gathers run at scalar rate on TPU.
     lit_byte = jnp.where(delta < hl_s, hdr, block_padded.astype(jnp.int32)[body_idx])
 
     out = jnp.where(seg_is_copy, copy_byte, lit_byte).astype(jnp.uint8)
@@ -286,22 +285,6 @@ def encode_blocks_jit(n_blocks: int, cap: int = _MATCH_CAP):
 MAX_BATCH_BLOCKS = 16
 
 
-def _best_encoder(nb: int):
-    """Platform pick: Pallas greedy kernel on TPU, the XLA array program
-    elsewhere (gathers run at scalar rate on TPU, see pallas_encode.py)."""
-    try:
-        import jax
-
-        if jax.devices()[0].platform == "tpu":
-            from ..core.config import DEFAULT_MIN_PROFIT
-            from . import pallas_encode
-
-            return pallas_encode.encode_blocks_jit(BLOCK_SIZE, False, DEFAULT_MIN_PROFIT)
-    except Exception:
-        pass
-    return encode_blocks_jit(nb)
-
-
 def compress_host(inp: np.ndarray) -> bytes:
     """Full host-side compress: split into blocks, run the batched device
     encoder, trim and concatenate under the varint header
@@ -312,7 +295,7 @@ def compress_host(inp: np.ndarray) -> bytes:
         return header
     n_blocks = -(-n // BLOCK_SIZE)
     parts = [header]
-    from . import route
+    from . import route, select
 
     for chunk_start in range(0, n_blocks, MAX_BATCH_BLOCKS):
         chunk_blocks = min(MAX_BATCH_BLOCKS, n_blocks - chunk_start)
@@ -325,5 +308,5 @@ def compress_host(inp: np.ndarray) -> bytes:
             blens[i] = len(chunk)
         # content-routed: incompressible blocks take the host-native
         # skip-heuristic path while the device works (ops/route.py)
-        parts.extend(route.compress_blocks_routed(buf, blens, chunk_blocks, _best_encoder))
+        parts.extend(route.compress_blocks_routed(buf, blens, chunk_blocks, select.block_encoder))
     return b"".join(parts)

@@ -1,4 +1,4 @@
-"""Host-facing wrappers around the XLA codec kernels.
+"""Host-facing wrappers around the device codec kernels.
 
 Handles what must stay on host: varint header parsing (it determines the
 output allocation), padding to jit-cached shape buckets, device transfer,
@@ -40,12 +40,12 @@ def _bucket(n: int, floor: int = 256) -> int:
 def uncompress(data) -> bytes:
     """Decode a raw Snappy stream on device.
 
-    TPU fast path: a native tag-walk segments the stream at its 64 KiB
+    Fast path: a native tag-walk segments the stream at its 64 KiB
     output-block boundaries (every real snappy encoder emits block-local
-    streams — reference src/Snappy.jl:29-33), then the batched Pallas
-    block decoder runs all blocks in one dispatch. Streams that defeat
-    segmentation (no native lib, or exotic boundary-crossing tags) fall
-    back to the sequential-capable XLA array decoder.
+    streams — reference src/Snappy.jl:29-33), then the selected batched
+    block decoder (ops/select.py) runs all blocks in one dispatch. Streams
+    that defeat segmentation (no native lib, or exotic boundary-crossing
+    tags) fall back to the sequential-capable XLA array decoder.
     """
     comp = _as_np(data)
     ulen, start = varint.parse32(comp, 0)  # raises CorruptInputError
@@ -71,21 +71,22 @@ def uncompress(data) -> bytes:
     return np.asarray(out[:ulen]).tobytes()
 
 
-def _uncompress_blocked(comp: np.ndarray, ulen: int, start: int) -> bytes | None:
+def _uncompress_blocked(comp: np.ndarray, ulen: int, start: int, block_decoder=None) -> bytes | None:
     """The device fast path: segment + batched block decode. Returns None
-    when unavailable (off-TPU, no native lib, non-block-local stream)."""
+    when it declines: no native library to segment with (scan_blocks), a
+    stream that is not block-local, or a block outside the decoder's
+    envelope. ``block_decoder(cmax_padded, out_size)`` defaults to the
+    selector's choice (ops/select.py)."""
     from . import select
 
-    if ulen == 0 or not select.on_tpu():
+    block_decoder = block_decoder or select.block_decoder
+    if ulen == 0:
         return None
-    try:
-        from ..native import runtime as nat
+    from ..native import runtime as nat
 
-        if not nat.available():
-            return None
-        scan = nat.scan_blocks(comp[start:], ulen)  # raises on corrupt
-    except ImportError:
+    if not nat.available():
         return None
+    scan = nat.scan_blocks(comp[start:], ulen)  # raises on corrupt
     if scan is None:
         return None
     starts, oplens = scan
@@ -94,27 +95,20 @@ def _uncompress_blocked(comp: np.ndarray, ulen: int, start: int) -> bytes | None
     n_blocks = len(starts)
     bounds = np.concatenate([starts, [len(body)]]).astype(np.int64)
     clens = (bounds[1:] - bounds[:-1]).astype(np.int32)
-    from ..parallel.host import _bucket_cmax
+    from ..parallel.host import _bucket_cmax, pack_rows
 
     cmax = _bucket_cmax(int(clens.max()))
-    # Segments from non-blocking encoders can approach 128 KiB compressed;
-    # the decode kernel's SMEM command windows cap out below that.
-    if cmax > 96 * 1024:
-        return None
+    # scan_blocks caps a segment's output below 128 KiB: both decoders take
+    # out_size 1 << 17.
     out_size = 1 << 16 if int(oplens.max()) <= 1 << 16 else 1 << 17
-    nb = _bucket(n_blocks)
+    nb = _bucket(n_blocks, 1)
     blocks = np.zeros((nb, cmax + decode_xla.COMP_PAD), np.uint8)
-    # Vectorized ragged scatter (one fancy-indexed assignment, C speed): a
-    # per-block Python copy loop was ~O(n_blocks) interpreter overhead and
-    # would cap a faster kernel.
-    rows = np.repeat(np.arange(n_blocks), clens)
-    cols = np.arange(len(body), dtype=np.int64) - np.repeat(bounds[:-1], clens)
-    blocks[rows, cols] = body
+    pack_rows(body, bounds[:-1], clens, blocks)
     ulens = np.zeros(nb, np.int32)
     ulens[:n_blocks] = oplens
     clens_p = np.zeros(nb, np.int32)
     clens_p[:n_blocks] = clens
-    dec = select.block_decoder(cmax + decode_xla.COMP_PAD, out_size)
+    dec = block_decoder(cmax + decode_xla.COMP_PAD, out_size)
     with trace_annotation("snappy.uncompress_blocked"):
         out, ok, _ = dec(jnp.asarray(blocks), jnp.asarray(clens_p), jnp.asarray(ulens))
         ok_np = np.asarray(ok)

@@ -1,10 +1,11 @@
-"""Array-program building blocks shared by the XLA/Pallas codec kernels.
+"""Array-program building blocks shared by the XLA codec kernels.
 
-These primitives are what replaces the reference's scalar control flow on
-TPU (SURVEY.md §7): sequential dependence chains (tag boundaries, LZ77
-back-references, greedy parse) become pointer-doubling fixpoints; byte
-cursors become prefix sums; per-byte branches become masked vector selects.
-Everything here is pure jnp on fixed shapes, safe under jit/vmap/shard_map.
+These primitives are what replaces the reference's scalar control flow in
+the data-parallel codecs (SURVEY.md §7): sequential dependence chains (tag
+boundaries, LZ77 back-references, greedy parse) become pointer-doubling
+fixpoints; byte cursors become prefix sums; per-byte branches become masked
+vector selects. Everything here is pure jnp on fixed shapes, safe under
+jit/vmap/shard_map.
 """
 
 from __future__ import annotations
@@ -26,19 +27,6 @@ def ceil_log2(n: int) -> int:
     return max(1, int(n - 1).bit_length())
 
 
-def isolate(*xs):
-    """optimization_barrier: keep gathers/scatters out of XLA loop fusions.
-
-    TPU XLA's fast gather/scatter emitters only apply to STANDALONE ops;
-    once fused with elementwise neighbors the whole fusion lowers to a
-    scalar loop (~1000x slower — measured: a bare 2M-element gather runs
-    ~20us, the same gather inside a fusion ~21ms). Barriers around the
-    operands/results of every hot gather/scatter keep them standalone.
-    """
-    out = jax.lax.optimization_barrier(xs)
-    return out[0] if len(xs) == 1 else out
-
-
 def le32_at_every_position(padded_u8: jnp.ndarray) -> jnp.ndarray:
     """uint32 little-endian load at every byte position.
 
@@ -48,8 +36,7 @@ def le32_at_every_position(padded_u8: jnp.ndarray) -> jnp.ndarray:
     uint32[len-3] so result[i] = LE32(padded[i:i+4]) for i in [0, len-4].
 
     Word-based: bitcast to uint32 words, then combine each word with its
-    successor per byte phase. Byte-granular shifted slices on the minor
-    dimension relayout at scalar rate on TPU; word ops don't.
+    successor per byte phase.
     """
     n = padded_u8.shape[-1]
     nw = n // 4
@@ -82,9 +69,7 @@ def reach_from(start: jnp.ndarray, nxt: jnp.ndarray, n: int, rounds: int | None 
     """
     if rounds is None:
         rounds = ceil_log2(n + 1)
-    # Extend with the absorbing sentinel slot at index n. All arrays in the
-    # loop are int32: bool (1-byte) scatters/gathers lower to scalar loops
-    # on TPU, ~100x slower than 32-bit ones.
+    # Extend with the absorbing sentinel slot at index n.
     jump = jnp.concatenate([nxt.astype(jnp.int32), jnp.array([n], jnp.int32)])
     # One-hot(start), derived from `jump` so it inherits its varying-axis
     # type under shard_map (a constant-built carry would mismatch the loop
@@ -93,9 +78,7 @@ def reach_from(start: jnp.ndarray, nxt: jnp.ndarray, n: int, rounds: int | None 
 
     def body(_, state):
         reach, jump = state
-        reach, jump = isolate(reach, jump)
         reach = reach.at[jump].max(reach, mode="drop")
-        reach, jump = isolate(reach, jump)
         jump = jump[jump]
         return reach, jump
 
@@ -116,7 +99,6 @@ def resolve_sources(src: jnp.ndarray, rounds: int | None = None) -> jnp.ndarray:
         rounds = ceil_log2(n + 1)
 
     def body(_, s):
-        s = isolate(s)
         return jnp.take_along_axis(s, s, axis=-1) if s.ndim > 1 else s[s]
 
     return jax.lax.fori_loop(0, rounds, body, src.astype(jnp.int32))

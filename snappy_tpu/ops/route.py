@@ -3,19 +3,16 @@
 The reference's growing-stride skip heuristic makes incompressible input
 nearly free (reference src/internal.jl:162-172): it probes sparsely and
 emits one long literal. The device encoder has no such bail-out — its
-kv-sort candidate prepass costs the same for jpeg as for html (VERDICT r4
-"missing" #3). Routing mirrors the heuristic's EFFECT at block
-granularity:
+kv-sort candidate prepass costs the same for jpeg as for html. Routing
+mirrors the heuristic's EFFECT at block granularity:
 
-  1. a ~30 us/block host detector samples 4-byte grams at stride 16 and
+  1. a host detector samples about 4096 4-byte grams per block and
      measures their duplicate ratio — incompressible corpus blocks (jpeg,
      the pdf's image stream) measure < 0.02, every compressible corpus
-     block >= 0.23 (round-5 measurement, benchmarks/NEGATIVE_RESULTS.md);
+     block >= 0.23;
   2. detected blocks are compressed ON HOST by the C++ greedy encoder
-     (native/snappy_native.cpp) — the same greedy algorithm as libsnappy
-     (byte-identical output on every corpus block, round-5 measurement),
-     running at 3-6 GB/s on incompressible data thanks to its own skip
-     heuristic;
+     (native/snappy_native.cpp) — the same greedy algorithm as libsnappy,
+     fast on incompressible data thanks to its own skip heuristic;
   3. the remaining blocks take the batched device encoder; the host
      natives run while the device dispatch is in flight (JAX dispatch is
      async), so detected blocks cost approximately nothing end-to-end.
@@ -43,16 +40,15 @@ def dup_ratios(buf: np.ndarray, blens: np.ndarray, n_blocks: int) -> np.ndarray:
     """Sampled 4-gram duplicate ratio per block.
 
     Uniform full-length blocks take a BATCH-vectorized path (one fancy
-    gather + one row-sorted adjacent-equal count, ~25 us/block at 128
-    blocks — a per-block np.unique loop cost ~200 us/block and dominated
-    the routed jpeg encode). The stride adapts so the sample count stays
-    ~4096 (a fixed stride under-sampled partial tails, round-5 bug);
-    blocks under 1 KiB never route — the sample is too small to trust and
-    routing gains nothing there."""
+    gather + one row-sorted adjacent-equal count) instead of a per-block
+    np.unique loop. The stride adapts so the sample count stays ~4096 (a
+    fixed stride under-samples partial tails); blocks under 1 KiB never
+    route — the sample is too small to trust and routing gains nothing
+    there."""
     out = np.ones(n_blocks, np.float32)
     lens = blens[:n_blocks].astype(np.int64)
     big = lens >= 1024
-    rest = list(np.flatnonzero(~big & (lens >= 1024)))  # none; placeholder
+    rest = []
     if big.any():
         # vectorize the modal length (typically every full block); loop
         # only the stragglers (partial tails)
@@ -105,8 +101,8 @@ def _native_block_stream(block: bytes) -> bytes:
 
 def native_streams_for(buf: np.ndarray, blens: np.ndarray, host_idx) -> dict:
     """Compress the routed blocks on host: ONE batched native call per
-    worker thread (native/runtime.py compress_rows — per-block ctypes
-    calls cost ~30 us each), threads splitting the index range (the call
+    worker thread (native/runtime.py compress_rows, which saves a ctypes
+    call per block), threads splitting the index range (the call
     releases the GIL, so the C++ encoders run on all cores and overlap
     the in-flight device dispatch)."""
     from ..native import runtime as nat

@@ -1,17 +1,17 @@
-"""Multi-chip / multi-host block-parallel codec (Mesh + shard_map).
+"""Multi-device / multi-host block-parallel codec (Mesh + shard_map).
 
 The reference has no parallelism of any kind (SURVEY.md §2); the format's
 own 64 KiB block independence (reference src/Snappy.jl:29-33) is what this
 module promotes to the scaling axis: blocks shard data-parallel over a 1-D
-device mesh, each chip runs the XLA codec kernels on its local blocks, and
-the ordered concatenation of framed outputs falls out of the global array
-layout (or an explicit ordered ``lax.all_gather`` over ICI when the result
-must be device-resident).
+device mesh, each device runs the selected codec kernels (ops/select.py) on
+its local blocks, and the ordered concatenation of framed outputs falls out
+of the global array layout (or an explicit ordered ``lax.all_gather`` when
+the result must be device-resident). The mesh follows the algorithm only:
+blocks need no communication, so its layout says nothing about topology.
 
 Multi-host: ``jax.distributed.initialize()`` + per-host I/O of disjoint
-block ranges; the same shard_map program then spans the pod slice, with
-XLA routing the gather over ICI within a slice and DCN across hosts. There
-is no NCCL/MPI analogue to port — XLA collectives are the backend.
+block ranges; the same shard_map program then spans every process's
+devices, with XLA's collectives (NCCL on GPUs) carrying the gather.
 """
 
 from __future__ import annotations
@@ -43,23 +43,22 @@ def pad_block_count(n_blocks: int, n_devices: int) -> int:
 
 
 @functools.lru_cache(maxsize=16)
-def _sharded_encode(mesh: Mesh, gather: bool, min_profit: int | None = None):
+def _sharded_encode(mesh: Mesh, gather: bool):
     """shard_map'd batched encoder over the block axis.
 
     gather=False: outputs stay sharded (host assembles in index order —
     order is by construction, no collective needed).
-    gather=True: ordered all_gather over ICI so every chip holds the full
-    framed output (device-resident pipelines).
+    gather=True: ordered all_gather so every device holds the full framed
+    output (device-resident pipelines).
+
+    shard_map checks replication (check_vma) on the sharded path. With
+    gather=True it cannot: ``jax.lax.all_gather`` is typed varying ->
+    varying, so the replicated P() out_specs are true of the values but not
+    inferable from their types.
     """
 
     def local(blocks, blens):
-        # Same platform-based kernel selection as the single-host driver
-        # (Pallas on TPU, XLA elsewhere); pallas_call composes with
-        # shard_map, so each chip runs the fast kernel on its local blocks.
-        enc = select.block_encoder(
-            blocks.shape[0], blocks.shape[1] - select.encode_xla.ENC_PAD, min_profit
-        )
-        out, olens = enc(blocks, blens)
+        out, olens = select.block_encoder(blocks.shape[0])(blocks, blens)
         if gather:
             out = jax.lax.all_gather(out, AXIS, tiled=True)
             olens = jax.lax.all_gather(olens, AXIS, tiled=True)
@@ -67,19 +66,17 @@ def _sharded_encode(mesh: Mesh, gather: bool, min_profit: int | None = None):
 
     spec_in = P(AXIS)
     spec_out = P() if gather else P(AXIS)
-    # check_vma=False: pallas_call outputs carry no vma annotation, and the
-    # all_gather outputs are replicated in fact, not by vma inference.
-    # pallas_call (reachable through select.block_encoder on TPU) is the
-    # SOLE reason this is disabled on both paths — re-enable once Pallas
-    # propagates vma annotations so shard_map's replication checking guards
-    # future edits to these drivers again.
-    fn = jax.shard_map(local, mesh=mesh, in_specs=(spec_in, spec_in), out_specs=(spec_out, spec_out),
-                   check_vma=False)
+    fn = jax.shard_map(
+        local, mesh=mesh, in_specs=(spec_in, spec_in), out_specs=(spec_out, spec_out), check_vma=not gather
+    )
     return jax.jit(fn)
 
 
 @functools.lru_cache(maxsize=16)
 def _sharded_decode(mesh: Mesh, out_size: int, gather: bool):
+    """shard_map'd batched decoder: each device runs the selected kernel
+    (the CUDA decoder's FFI call included) on its local blocks."""
+
     def local(comp, clens, ulens):
         dec = select.block_decoder(comp.shape[1], out_size)
         out, ok, total = dec(comp, clens, ulens)
@@ -93,7 +90,7 @@ def _sharded_decode(mesh: Mesh, out_size: int, gather: bool):
     spec_out = P() if gather else P(AXIS)
     fn = jax.shard_map(
         local, mesh=mesh, in_specs=(spec_in, spec_in, spec_in), out_specs=(spec_out, spec_out, spec_out),
-        check_vma=False,  # see _sharded_encode
+        check_vma=not gather,  # see _sharded_encode
     )
     return jax.jit(fn)
 
@@ -107,7 +104,6 @@ def compress_blocks(
     blens: np.ndarray,
     mesh: Mesh,
     gather: bool = False,
-    min_profit: int | None = None,
 ):
     """Encode a [NB, BLOCK_SIZE+ENC_PAD] batch sharded over ``mesh``.
 
@@ -115,7 +111,7 @@ def compress_blocks(
     Returns (out [NB, BLOCK_MAX_OUT], olens [NB]) — sharded, or replicated
     if gather=True.
     """
-    fn = _sharded_encode(mesh, gather, min_profit)
+    fn = _sharded_encode(mesh, gather)
     return fn(_device_put_sharded(blocks, mesh), _device_put_sharded(blens.astype(np.int32), mesh))
 
 
@@ -136,6 +132,5 @@ def initialize_multihost(**kwargs) -> None:
     """Multi-host entry: call once per host before building the mesh
     (wraps jax.distributed.initialize; coordinator/process args as in JAX).
     Each host then reads its disjoint byte range and participates in the
-    same shard_map program; collectives ride ICI intra-slice, DCN across
-    hosts."""
+    same shard_map program."""
     jax.distributed.initialize(**kwargs)

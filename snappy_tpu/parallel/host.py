@@ -1,4 +1,4 @@
-"""Host drivers for the framed codec path (single-chip and mesh-sharded).
+"""Host drivers for the framed codec path (single-device and mesh-sharded).
 
 Splits streams into independent 64 KiB blocks, dispatches the batched XLA
 kernels (optionally shard_map'd over a device mesh), and assembles/parses
@@ -29,11 +29,19 @@ def _bucket(n: int, floor: int = 1) -> int:
 
 def _bucket_cmax(n: int) -> int:
     """Compressed-width bucket: 8 KiB granularity instead of power-of-two.
-    A power-of-two bucket sends ~65.5 KiB incompressible blocks to 131072,
-    whose two SMEM command windows (2 x 512 KiB) overflow the 1 MiB SMEM in
-    the Pallas decoder; 8 KiB steps keep the compile-shape count small
-    (<=10) without the 2x blowup."""
+    A power-of-two bucket would send ~65.5 KiB incompressible blocks to
+    131072 and double the decoder's input width; 8 KiB steps keep the
+    compile-shape count small (<=10) without the 2x blowup."""
     return max(8192, -(-n // 8192) * 8192)
+
+
+def pack_rows(body: np.ndarray, starts, clens, out: np.ndarray) -> None:
+    """Copy the tag stream body[starts[i] : starts[i] + clens[i]] into row i
+    of ``out``. One slice copy per block: a single fancy-indexed scatter
+    would build two index arrays as long as the body, which is far slower
+    at stream sizes (1,024 blocks of a 64 MiB stream)."""
+    for i, (s, n) in enumerate(zip(np.asarray(starts).tolist(), np.asarray(clens).tolist())):
+        out[i, :n] = body[s : s + n]
 
 
 def _blockify(inp: np.ndarray, block_size: int, nb_padded: int) -> tuple[np.ndarray, np.ndarray]:
@@ -65,16 +73,14 @@ def dispatch_compress(data, config: FrameConfig = DEFAULT_FRAME_CONFIG, mesh=Non
     buf, blens = _blockify(inp, bs, nb)
     with trace_annotation("framed.dispatch_compress"):
         if mesh is not None:
-            out, olens = distributed.compress_blocks(buf, blens, mesh, min_profit=config.min_profit)
+            out, olens = distributed.compress_blocks(buf, blens, mesh)
             return ("batch", (out, olens), inp, n_blocks, config)
         # single-host: content-routed — incompressible blocks take the
         # host-native skip-heuristic path while the device dispatch is in
         # flight (ops/route.py; mirrors reference src/internal.jl:162-172)
         from ..ops import route
 
-        rt = route.dispatch_routed(
-            buf, blens, n_blocks, lambda nbk: block_encoder(nbk, bs, config.min_profit)
-        )
+        rt = route.dispatch_routed(buf, blens, n_blocks, block_encoder)
     return ("routed", rt, inp, n_blocks, config)
 
 
@@ -117,15 +123,10 @@ def dispatch_uncompress(frame: bytes, mesh=None):
     clens = np.zeros(nb, np.int32)
     ulens = np.zeros(nb, np.int32)
     fbuf = np.frombuffer(frame, np.uint8)
-    # Vectorized ragged scatter (block tag streams are contiguous in the
-    # frame payload): one fancy-indexed assignment, no per-block loop.
     n = idx.n_blocks
     starts = np.array([s for s, _ in ranges], np.int64)
     clens[:n] = np.array([e - s for s, e in ranges], np.int64)
-    body = fbuf[starts[0] : ranges[-1][1]]
-    rows = np.repeat(np.arange(n), clens[:n])
-    cols = np.arange(len(body), dtype=np.int64) - np.repeat(starts - starts[0], clens[:n])
-    comp[rows, cols] = body
+    pack_rows(fbuf, starts, clens[:n], comp)
     ulens[:n] = idx.block_size
     ulens[n - 1] = idx.block_ulen(n - 1)
     out_size = _bucket(int(idx.block_size), 64)

@@ -4,13 +4,12 @@
 The reference is strictly single-threaded (reference src/Snappy.jl); here
 the framed container's block independence scales past one host: every
 process reads only its DISJOINT byte range of the input, all processes
-run the SAME shard_map codec program over the GLOBAL device mesh (XLA
-routes collectives over ICI within a slice and DCN across hosts), and
+run the SAME shard_map codec program over the GLOBAL device mesh, and
 the frame is assembled without serializing the payload through one host:
 
   compress:   per-process local read + sharded encode -> allgather of the
               per-block compressed lengths (+ crcs), the ONLY cross-host
-              exchange: 4-8 B/block over DCN -> every process computes its
+              exchange: 4-8 B/block between hosts -> every process computes its
               payload byte offsets from the global index and pwrites its
               own slice; process 0 writes the header + index.
   decompress: every process reads the (tiny) frame index plus ONLY its own
@@ -31,7 +30,7 @@ two CPU processes and asserts byte equality with the single-process frame).
 
 **Filesystem requirement:** ``in_path``/``out_path`` must live on a
 filesystem shared by ALL processes (NFS/GCS-fuse/parallel FS — the normal
-pod arrangement, and what the localhost tests use). Each process pwrites
+cluster arrangement, and what the localhost tests use). Each process pwrites
 only its own slice; on per-host local disks every host would end up with
 a silently incomplete file. After the final barrier every process
 re-parses the header+index from disk, and process 0 decodes a sampled
@@ -110,7 +109,7 @@ def _local_rows(garr) -> np.ndarray:
 
 def _allgather_rows(local_np: np.ndarray) -> np.ndarray:
     """Concatenate equal-shaped per-process host values in process order
-    (the DCN exchange; 4-8 bytes per block in practice)."""
+    (the cross-host exchange; 4-8 bytes per block in practice)."""
     return np.asarray(multihost_utils.process_allgather(local_np, tiled=True))
 
 
@@ -138,7 +137,7 @@ def compress_framed(
 
     gbuf = _shard_in(buf, nb, mesh)
     glens = _shard_in(blens.astype(np.int32), nb, mesh)
-    out, olens = distributed._sharded_encode(mesh, False, config.min_profit)(gbuf, glens)
+    out, olens = distributed._sharded_encode(mesh, False)(gbuf, glens)
 
     local_out = _local_rows(out)
     local_olens = _local_rows(olens)

@@ -1,6 +1,6 @@
-"""Metrics, profiling, and corpus utilities."""
+"""Metrics, profiling, and compile-cache utilities."""
 
-from .metrics import Metrics, time_device_fn
+from .metrics import Metrics, time_fn
 from .profiling import profile_to, trace_annotation
 
-__all__ = ["Metrics", "profile_to", "time_device_fn", "trace_annotation"]
+__all__ = ["Metrics", "profile_to", "time_fn", "trace_annotation"]

@@ -143,7 +143,7 @@ def test_block_batched_decode():
 
 class TestWindowedRawFallback:
     """decode_raw_windowed: bounded-memory sequential decode of large raw
-    streams (the no-native-lib fallback; VERDICT round-3 weak #5)."""
+    streams (the no-native-lib fallback)."""
 
     @pytest.fixture(autouse=True)
     def small_windows(self, monkeypatch):

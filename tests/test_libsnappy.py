@@ -70,24 +70,20 @@ def test_native_size_tracks_real_libsnappy(name):
 
 @pytest.mark.parametrize("name", ["html", "urls.10K", "geo.protodata", "sample-tweet.json"])
 def test_device_parse_beats_real_libsnappy_size(name):
-    # The exact-candidate XLA/Pallas parse must beat the genuine article on
-    # compressible files (BASELINE.md:30). Runs the XLA encoder on CPU.
+    # The exact-candidate device parse (the selector's block encoder) must
+    # beat the genuine article on compressible files (BASELINE.md:30).
     import jax.numpy as jnp
 
-    from snappy_tpu.core.config import DEFAULT_MIN_PROFIT
-    from snappy_tpu.ops import pallas_encode
-    from snappy_tpu.ops.encode_xla import encode_blocks_jit as xla_encode  # noqa: F401
+    from snappy_tpu.core import varint
+    from snappy_tpu.ops import encode_xla, select
 
     raw = read_testdata(name)[:BLOCK_SIZE]
-    enc = pallas_encode.encode_blocks_jit(BLOCK_SIZE, True, DEFAULT_MIN_PROFIT)
-    buf = np.zeros((1, BLOCK_SIZE + pallas_encode.ENC_PAD), np.uint8)
+    buf = np.zeros((1, BLOCK_SIZE + encode_xla.ENC_PAD), np.uint8)
     buf[0, : len(raw)] = np.frombuffer(raw, np.uint8)
-    out, olens = enc(jnp.asarray(buf), jnp.asarray([len(raw)], np.int32))
+    out, olens = select.block_encoder(1)(jnp.asarray(buf), jnp.asarray([len(raw)], np.int32))
     ours = int(np.asarray(olens)[0])
-    theirs = len(ls.compress(raw)) - 2  # minus varint header bytes (~2-3)
+    theirs = len(ls.compress(raw)) - len(varint.encode32(len(raw)))
     assert ours <= theirs, f"{name}: device {ours} > libsnappy {theirs}"
-    # and the thinned stream still decodes under the real thing
-    from snappy_tpu.core import varint
-
+    # and the stream decodes under the real thing
     stream = varint.encode32(len(raw)) + np.asarray(out)[0, :ours].tobytes()
     assert ls.uncompress(stream) == raw

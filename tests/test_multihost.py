@@ -89,8 +89,7 @@ def test_two_process_frame_matches_single_process(tmp_path):
 def test_uneven_splits_match_single_process(nprocs, n_bytes, tmp_path):
     """Multi-host frames must be byte-identical to single-process output
     for block counts that don't divide evenly over processes/devices —
-    exercises _my_block_range / pwrite offset arithmetic on uneven tails
-    (VERDICT r4 task 6)."""
+    exercises _my_block_range / pwrite offset arithmetic on uneven tails."""
     rng = __import__("numpy").random.RandomState(13)
     words = [rng.randint(0, 256, rng.randint(4, 17)).astype("uint8").tobytes() for _ in range(64)]
     raw = b"".join(words[rng.randint(0, 64)] for _ in range(n_bytes // 8))[:n_bytes]

@@ -18,7 +18,7 @@ if not nat.available():
 
 def split_decode(stream: bytes) -> bytes:
     """Decode via scan_blocks segmentation + per-segment oracle decode —
-    exactly the structure of the TPU fast path, minus the device."""
+    exactly the structure of the raw fast path, minus the device."""
     ulen, hdr = nat.uncompressed_length(stream)
     body = stream[hdr:]
     scan = nat.scan_blocks(body, ulen)
@@ -79,9 +79,8 @@ def test_boundary_crossing_literal_makes_long_segment():
 
 def test_block_crossing_copy_merges_segments():
     # Copy whose source reaches behind its segment start: the scan MERGES
-    # the segment into its predecessor (the kernel's 17-bit fields and
-    # 128 KiB output buffer cover it) instead of declining — round-5
-    # fallback-surface shrink (VERDICT r4 task 5).
+    # the segment into its predecessor (the decoders' 128 KiB output
+    # window covers it) instead of declining.
     blk = bytes([1]) * (1 << 16)
     body = bytes([62 << 2]) + ((1 << 16) - 1).to_bytes(3, "little") + blk
     # 4-byte copy at offset 100 — source is inside block 0, dst in block 1
@@ -117,10 +116,9 @@ def _long_literal_stream(n: int, seed: int = 7) -> tuple[bytes, bytes]:
 
 
 def test_long_literal_segments_up_to_128k_declines_past():
-    """Literals up to the kernel's widened 17-bit length field (~128 KiB)
-    now SEGMENT and ride the fast path (round-5 fallback-surface shrink);
-    longer ones still decline — and never report corrupt (round-3
-    regression: such streams raised CorruptInputError)."""
+    """Literals that fit the decoders' 128 KiB output window SEGMENT and
+    ride the fast path; longer ones decline — and never report corrupt
+    (such streams once raised CorruptInputError)."""
     for n, fast in ((70_000, True), (120_000, True), (200_000, False)):
         stream, big = _long_literal_stream(n)
         ulen, hdr = nat.uncompressed_length(stream)
@@ -144,8 +142,8 @@ def test_long_literal_uncompress_bit_exact():
 
 def test_wide_offset_copy4_merges_and_decodes():
     """COPY_4 with offset > 65535: valid for foreign encoders; the scan
-    merges it into its source's segment (17-bit offset field, round-5)
-    and the public host decode stays bit-exact."""
+    merges it into its source's segment and the public host decode stays
+    bit-exact."""
     from snappy_tpu.ops import host as xh
 
     stream, big = _long_literal_stream(70_000)
@@ -160,45 +158,6 @@ def test_wide_offset_copy4_merges_and_decodes():
     assert scan is not None and list(scan[1]) == [len(out_ref)]
     assert split_decode(stream2) == out_ref
     assert xh.uncompress(stream2) == out_ref
-
-
-def test_merged_segments_decode_on_pallas_interpret():
-    """Merged (>64 KiB output, wide-offset) segments decode bit-exact
-    through the Pallas kernel itself (interpret mode) at the 1<<17 output
-    bucket — the exact configuration the TPU fast path uses for them."""
-    import jax.numpy as jnp
-
-    from snappy_tpu.ops import pallas_decode as pd
-
-    rng = np.random.default_rng(3)
-    big = rng.integers(0, 256, 70_000).astype(np.uint8).tobytes()
-    body = bytes([62 << 2]) + (len(big) - 1).to_bytes(3, "little") + big
-    body += bytes([(63 << 2) | 3]) + (66_000).to_bytes(4, "little")  # wide copy
-    out_ref = big + big[70_000 - 66_000 : 70_000 - 66_000 + 64]
-    body += bytes([3 << 2]) + b"tail"
-    out_ref += b"tail"
-    stream = varint.encode32(len(out_ref)) + body
-    assert oracle.uncompress(stream) == out_ref
-    ulen, hdr = nat.uncompressed_length(stream)
-    starts, oplens = nat.scan_blocks(stream[hdr:], ulen)
-    bodyb = stream[hdr:]
-    bounds = list(starts) + [len(bodyb)]
-    segs = [bodyb[bounds[i] : bounds[i + 1]] for i in range(len(starts))]
-    cmax = -(-(max(len(t) for t in segs) + pd.COMP_PAD) // 512) * 512
-    comp = np.zeros((len(segs), cmax), np.uint8)
-    for i, t in enumerate(segs):
-        comp[i, : len(t)] = np.frombuffer(t, np.uint8)
-    fn = pd.decode_blocks_jit(cmax, 1 << 17, True)
-    o, k, _ = fn(
-        jnp.asarray(comp),
-        jnp.asarray(np.array([len(t) for t in segs], np.int32)),
-        jnp.asarray(np.array(list(oplens), np.int32)),
-    )
-    assert bool(np.asarray(k).all())
-    got = b"".join(
-        np.asarray(o)[i, : oplens[i]].tobytes() for i in range(len(segs))
-    )
-    assert got == out_ref
 
 
 def test_scan_starts_int64():

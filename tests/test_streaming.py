@@ -77,7 +77,7 @@ def test_transient_frame_failure_recovers(monkeypatch):
 
 def test_corrupt_frame_does_not_retry(monkeypatch):
     """Data corruption is deterministic: the pipeline must NOT burn a
-    re-dispatch on CorruptInputError (ADVICE r2) — only transient faults
+    re-dispatch on CorruptInputError — only transient faults
     retry."""
     raw = read_testdata("html")
     src, dst = io.BytesIO(raw), io.BytesIO()
